@@ -1,0 +1,292 @@
+"""ALEX-family gapped-array learned index as a PyTorch functional simulator
+(twin of `repro/index/alex.py`).
+
+Two-level structure (root model over leaves, per-leaf linear models over
+a gapped array), exact per-query search distances on real fitted models,
+density-triggered expansions, policy-driven splits, and the
+out-of-domain insert buffer whose thresholds create the paper's
+"dangerous zone" (Fig 11).  All operations are batched over the queries;
+costs are work counters times the ns constants of `index/cost.py`.
+
+14 tunable parameters matching Table 2 (5 continuous, 3 boolean, 4
+integer, 2 discrete-choice) -- see PARAM_SPACE below.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.index import cost as C
+from repro_torch.index import linear_model as lm
+from repro_torch.kernels.index_probe.ops import predecessor_positions
+from repro_torch.numerics import clip, percentile
+
+MAX_LEAVES = 512  # static capacity; max_fanout param stays below this
+
+# name, kind, (low, high) in *raw* space
+PARAM_SPACE = [
+    ("density_init", "cont", (0.5, 0.95)),
+    ("density_upper", "cont", (0.6, 0.99)),
+    ("expected_insert_frac", "cont", (0.0, 1.0)),
+    ("split_balance", "cont", (0.3, 0.7)),
+    ("cost_w_traverse", "cont", (0.0, 1.0)),
+    ("approx_model_computation", "bool", (0, 1)),
+    ("approx_cost_computation", "bool", (0, 1)),
+    ("allow_splitting_upwards", "bool", (0, 1)),
+    ("max_node_size_log2", "int", (8, 16)),
+    ("kmax_ood_keys_log2", "int", (2, 14)),
+    ("ood_tolerance_factor", "int", (1, 50)),
+    ("max_fanout_log2", "int", (4, 9)),
+    ("fanout_selection_method", "choice", (0, 1)),   # equi-depth | equi-width
+    ("splitting_policy_method", "choice", (0, 2)),   # halve | density | side
+]
+
+# Expert defaults (mirrors ALEX's published defaults, scaled to simulator).
+DEFAULTS = {
+    "density_init": 0.7, "density_upper": 0.8, "expected_insert_frac": 1.0,
+    "split_balance": 0.5, "cost_w_traverse": 0.5,
+    "approx_model_computation": 0, "approx_cost_computation": 0,
+    "allow_splitting_upwards": 0, "max_node_size_log2": 14,
+    "kmax_ood_keys_log2": 4, "ood_tolerance_factor": 2,
+    "max_fanout_log2": 7, "fanout_selection_method": 0,
+    "splitting_policy_method": 0,
+}
+
+
+def build(keys: torch.Tensor, p: dict):
+    """Construct the index on sorted keys [n]. Returns an index state dict."""
+    n = keys.shape[0]
+    nf = torch.tensor(float(n), dtype=torch.float32, device=keys.device)
+    max_fanout = 2.0 ** p["max_fanout_log2"]
+    node_keys = 2.0 ** p["max_node_size_log2"] * p["density_init"]
+    n_leaves = clip(torch.ceil(nf / torch.clamp(node_keys, min=16.0)),
+                    1.0, torch.clamp(max_fanout, max=float(MAX_LEAVES)))
+
+    ranks = torch.arange(n, dtype=torch.float32, device=keys.device)
+    kmin, kmax = keys[0], keys[-1]
+    width = torch.clamp(kmax - kmin, min=1e-12)
+    seg_depth = torch.minimum(ranks * n_leaves / nf, n_leaves - 1.0)
+    seg_width = clip((keys - kmin) / width * n_leaves, 0.0, n_leaves - 1.0)
+    equi_width = p["fanout_selection_method"] > 0.5
+    seg = torch.where(equi_width, seg_width, seg_depth).to(torch.int32)
+
+    exact = lm.fit_segments_exact(keys, seg, MAX_LEAVES)
+    approx = lm.fit_segments_approx(keys, seg, MAX_LEAVES)
+    use_approx = p["approx_model_computation"] > 0.5
+    slope = torch.where(use_approx, approx[0], exact[0])
+    intercept = torch.where(use_approx, approx[1], exact[1])
+    cnt = exact[2]
+    err = lm.segment_errors(keys, seg, MAX_LEAVES, slope, intercept)
+
+    # root model: linear fit of key -> leaf id (exact for equi-width)
+    root_slope_w = n_leaves / width
+    root_icpt_w = -root_slope_w * kmin
+    rs, ri, _ = lm.fit_segments_exact(keys, torch.zeros_like(seg), 1)
+    root_slope_d = rs[0] * n_leaves / nf        # rank-model -> leaf id
+    root_icpt_d = ri[0] * n_leaves / nf
+    root_slope = torch.where(equi_width, root_slope_w, root_slope_d)
+    root_icpt = torch.where(equi_width, root_icpt_w, root_icpt_d)
+
+    # gapped slots: density + headroom for expected inserts
+    slots = cnt / torch.clamp(p["density_init"], min=0.05) \
+        * (1.0 + 0.5 * p["expected_insert_frac"])
+    slots = torch.where(cnt > 0, torch.maximum(slots, cnt + 1.0), 0.0)
+
+    build_cost = (n * C.RETRAIN_PER_KEY_NS
+                  + torch.sum(slots) * C.SLOT_INIT_NS
+                  + torch.where(use_approx, 0.3, 1.0) * n * C.FIT_PER_KEY_NS)
+
+    zero = torch.zeros((), dtype=torch.float32, device=keys.device)
+    return {
+        "keys": keys, "seg_of_key": seg,
+        "n_leaves": n_leaves, "slope": slope, "intercept": intercept,
+        "cnt": cnt, "slots": slots, "err": err,
+        "root_slope": root_slope, "root_icpt": root_icpt,
+        "kmin": kmin, "kmax": kmax,
+        "ood_buffer": zero,
+        "counters": {
+            "n_expands": zero, "n_splits": zero,
+            "n_retrains": zero, "build_cost_ns": build_cost,
+            "mega_leaf": zero,
+        },
+    }
+
+
+def _locate(idx: dict, q: torch.Tensor, pos: torch.Tensor | None = None):
+    """Root traversal for a batch of queries. Returns (leaf, root_cost,
+    root_err).
+
+    `pos` accepts precomputed predecessor positions (the read path probes
+    once through `predecessor_positions` and shares the result with the
+    local-search stage); None computes them with ``torch.searchsorted``,
+    as the reference's insert path does."""
+    pred = idx["root_slope"] * q + idx["root_icpt"]
+    pred = clip(pred, 0.0, idx["n_leaves"] - 1.0)
+    # true leaf = leaf of the predecessor key (exact, computed on real data)
+    if pos is None:
+        pos = torch.clamp(
+            torch.searchsorted(idx["keys"], q, right=True) - 1,
+            0, idx["keys"].shape[0] - 1)
+    true_leaf = idx["seg_of_key"][pos]
+    root_err = torch.abs(pred - true_leaf.to(torch.float32))
+    cost = C.MODEL_EVAL_NS + C.PROBE_STEP_NS * torch.log2(1.0 + root_err)
+    return true_leaf, cost, root_err
+
+
+def run_reads(idx: dict, reads: torch.Tensor, kernel=None):
+    """Batched SEARCH. Returns (total_ns, metrics dict).
+
+    `kernel` (a `kernels.dispatch.KernelConfig`) sets the predecessor
+    probe's mode: by default, on CUDA it launches the index-probe kernel, on CPU it runs
+    ``torch.searchsorted``.  The probe runs once and feeds both the
+    root-traversal and local-search stages."""
+    pos = predecessor_positions(idx["keys"], reads, kernel=kernel)
+    leaf, root_cost, root_err = _locate(idx, reads, pos=pos)
+    cnt = torch.clamp(idx["cnt"], min=1.0)
+    starts = torch.cumsum(idx["cnt"], 0) - idx["cnt"]
+    local_rank = pos.to(torch.float32) - starts[leaf]
+    pred_local = idx["slope"][leaf] * reads + idx["intercept"][leaf]
+    pred_local = clip(pred_local, 0.0, cnt[leaf])
+    # gapped-array positions scale ranks by 1/density
+    density = clip(idx["cnt"] / torch.clamp(idx["slots"], min=1.0),
+                   0.01, 1.0)
+    search_dist = torch.abs(pred_local - local_rank) / density[leaf]
+    probe = C.MODEL_EVAL_NS + C.PROBE_STEP_NS * (
+        1.0 + 2.0 * torch.log2(1.0 + search_dist))
+    buffer_scan = idx["ood_buffer"] * C.BUFFER_CMP_NS  # linear ood scan
+    per_q = C.QUERY_BASE_NS + root_cost + probe + buffer_scan
+    total = torch.sum(per_q)
+    return total, {
+        "avg_search_dist": torch.mean(search_dist),
+        "p99_search_dist": percentile(search_dist, 99),
+        "avg_root_err": torch.mean(root_err),
+        "read_ns_avg": torch.mean(per_q),
+    }
+
+
+def run_inserts(idx: dict, inserts: torch.Tensor, p: dict):
+    """Batched INSERT with density-aware displacement, expansions, splits
+    and the out-of-domain buffer/retrain mechanics.  Returns
+    (idx', ns, metrics)."""
+    in_domain = inserts <= idx["kmax"]
+    n_ood = torch.sum(~in_domain).to(torch.float32)
+    q_in = torch.where(in_domain, inserts, idx["kmin"])  # mask ood from leaves
+
+    leaf, root_cost, _ = _locate(idx, q_in)
+    w_in = in_domain.to(torch.float32)
+    # 0/1 weights: the float sum is an exact count in any order
+    add = torch.zeros(MAX_LEAVES, device=inserts.device).index_add_(
+        0, leaf, w_in)
+
+    cnt0, slots0 = idx["cnt"], torch.clamp(idx["slots"], min=1.0)
+    occ0 = clip(cnt0 / slots0, 0.0, 0.999)
+    occ1 = clip((cnt0 + add) / slots0, 0.0, 0.999)
+    occ_mid = 0.5 * (occ0 + occ1)
+    # expected gapped-array displacement ~ rho/(1-rho)
+    disp = occ_mid / (1.0 - occ_mid)
+    per_leaf_ins_ns = add * (C.MODEL_EVAL_NS + C.SHIFT_NS * disp
+                             + C.PROBE_STEP_NS * 2.0)
+    cnt1 = cnt0 + add
+
+    # --- expansions / splits ---
+    over = (cnt1 / slots0 > p["density_upper"]) & (cnt0 > 0)
+    node_cap = 2.0 ** p["max_node_size_log2"]
+    want_expand = over & (slots0 / p["density_init"] <= node_cap)
+    # approximate cost model mis-predicts expand-vs-split decisions
+    flip = (p["approx_cost_computation"] > 0.5) & (
+        torch.abs(torch.sin(cnt1 * 12.9898))
+        < 0.15 + 0.2 * p["cost_w_traverse"])
+    want_split = (over & ~want_expand) | (want_expand & flip)
+    want_expand = over & ~want_split
+
+    new_slots = torch.where(want_expand, cnt1 / p["density_init"], slots0)
+    expand_ns = torch.where(want_expand,
+                            new_slots * C.SLOT_INIT_NS
+                            + cnt1 * C.RETRAIN_PER_KEY_NS, 0.0)
+
+    can_split = (idx["n_leaves"] < 2.0 ** p["max_fanout_log2"]) | \
+        (p["allow_splitting_upwards"] > 0.5)
+    do_split = want_split & can_split
+    bal = torch.clamp(p["split_balance"], 0.05, 0.95)
+    imb = 1.0 + torch.abs(bal - 0.5) * 2.0   # unbalanced splits refill faster
+    split_ns = torch.where(do_split,
+                           cnt1 * (C.RETRAIN_PER_KEY_NS + C.SHIFT_NS) * imb,
+                           0.0)
+    # split halves occupancy (approximately, policy-dependent)
+    policy = p["splitting_policy_method"]
+    post_density = torch.where(
+        policy < 0.5, 0.5,
+        torch.where(policy < 1.5, p["density_init"], 0.65))
+    # cascade pathology: if splits leave nodes at/above the expansion
+    # threshold they immediately re-split -- the "infinite loop" failure
+    # mode of the real codebase (Fig 4b / Fig 11 dangerous zone).
+    cascade = torch.where(post_density >= p["density_upper"] - 0.02,
+                          50.0, 1.0)
+    split_ns = split_ns * cascade
+    new_slots = torch.where(do_split,
+                            cnt1 / torch.clamp(post_density, min=0.05),
+                            new_slots)
+    mega = want_split & ~can_split   # couldn't split: mega-leaf degradation
+    new_slots = torch.where(mega, cnt1 / 0.99, new_slots)
+
+    n_new_leaves = torch.clamp(idx["n_leaves"] + torch.sum(do_split),
+                               max=float(MAX_LEAVES))
+
+    # --- out-of-domain buffer ---
+    kmax_ood = 2.0 ** p["kmax_ood_keys_log2"]
+    limit = kmax_ood * p["ood_tolerance_factor"]
+    buf1 = idx["ood_buffer"] + n_ood
+    retrain = buf1 > limit
+    n_keys = idx["keys"].shape[0]
+    retrain_ns = torch.where(retrain,
+                             (n_keys + buf1) * C.RETRAIN_PER_KEY_NS
+                             + torch.sum(new_slots) * C.SLOT_INIT_NS, 0.0)
+    buf2 = torch.where(retrain, 0.0, buf1)
+    ood_ns = n_ood * (C.QUERY_BASE_NS + C.BUFFER_CMP_NS * buf1 * 0.5)
+
+    total_ns = (torch.sum(per_leaf_ins_ns) + torch.sum(expand_ns)
+                + torch.sum(split_ns) + retrain_ns + ood_ns
+                + torch.sum(w_in) * C.QUERY_BASE_NS
+                + torch.sum(root_cost * w_in))
+
+    counters = dict(idx["counters"])
+    counters["n_expands"] = counters["n_expands"] + torch.sum(want_expand)
+    counters["n_splits"] = counters["n_splits"] + torch.sum(do_split)
+    counters["n_retrains"] = counters["n_retrains"] \
+        + retrain.to(torch.float32)
+    counters["mega_leaf"] = counters["mega_leaf"] + torch.sum(mega)
+
+    idx2 = dict(idx)
+    idx2["cnt"] = cnt1
+    idx2["slots"] = torch.where(cnt0 > 0, new_slots, slots0)
+    idx2["ood_buffer"] = buf2
+    idx2["n_leaves"] = n_new_leaves
+    idx2["counters"] = counters
+    n_ins = max(inserts.shape[0], 1)
+    metrics = {
+        "insert_ns_avg": total_ns / n_ins,
+        "avg_displacement": torch.mean(disp * (add > 0)),
+        "ood_frac": n_ood / n_ins,
+        "buffer_fill": buf2,
+        "retrained": retrain.to(torch.float32),
+    }
+    return idx2, total_ns, metrics
+
+
+def memory_bytes(idx: dict, p: dict | None = None) -> torch.Tensor:
+    """Resident bytes: slots + models + the PRE-ALLOCATED out-of-domain
+    buffer capacity (kMaxOutOfDomainKeys x tolerance per boundary region).
+
+    With equi-width fanout + upward splitting the boundary-region count
+    multiplies -- reproducing the paper's Fig-11 dangerous zone where
+    aggressive (kmax_ood, tolerance) settings crash the system."""
+    base = (torch.sum(idx["slots"]) * 16.0 + MAX_LEAVES * 32.0
+            + idx["ood_buffer"] * 16.0)
+    if p is None:
+        return base
+    regions = 32.0 * torch.where(
+        (p["fanout_selection_method"] > 0.5)
+        & (p["allow_splitting_upwards"] > 0.5), 4.0, 1.0) * torch.where(
+        p["splitting_policy_method"] > 0.5, 2.0, 1.0)
+    buffer_capacity = (2.0 ** p["kmax_ood_keys_log2"]
+                       * p["ood_tolerance_factor"] * 16.0 * regions)
+    return base + buffer_capacity

@@ -1,0 +1,189 @@
+"""CARMI-family cache-aware RMI simulator in PyTorch (twin of
+`repro/index/carmi.py`).
+
+CARMI (Zhang & Gao, 2021) is an RMI variant whose construction optimizes
+a hybrid space-time cost with cache-awareness: nodes are sized in cache
+lines, and a lambda parameter trades memory (gaps, wider fanout) against
+lookup time.  13 tunable parameters (10 continuous, 2 integer, 1 hybrid
+continuous/discrete) per Table 2 of the paper.
+
+Costs are cache-line touches x line latency + in-line comparisons, which
+is what distinguishes CARMI's landscape from ALEX's probe-dominated one.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.index import cost as C
+from repro_torch.index import linear_model as lm
+from repro_torch.kernels.index_probe.ops import predecessor_positions
+from repro_torch.numerics import clip, percentile
+
+MAX_LEAVES = 1024
+
+PARAM_SPACE = [
+    ("alpha_visit", "cont", (0.1, 4.0)),      # traversal cost weight
+    ("alpha_scan", "cont", (0.1, 4.0)),       # in-leaf scan cost weight
+    ("prefetch_aggr", "cont", (0.0, 1.0)),    # prefetch aggressiveness
+    ("leaf_density", "cont", (0.5, 0.95)),
+    ("split_ratio", "cont", (0.3, 0.7)),
+    ("w_read", "cont", (0.0, 2.0)),           # read-optimized construction
+    ("w_write", "cont", (0.0, 2.0)),          # write-optimized construction
+    ("ood_tolerance", "cont", (0.0, 1.0)),
+    ("rebuild_threshold", "cont", (0.05, 1.0)),
+    ("root_lr_scale", "cont", (0.25, 4.0)),   # root model granularity
+    ("leaf_lines_log2", "int", (1, 7)),       # cache lines per leaf
+    ("root_fanout_log2", "int", (4, 10)),
+    ("lambda_spacetime", "hybrid", (0.0, 1.0)),  # <0.05 snaps to time-only
+]
+
+DEFAULTS = {
+    "alpha_visit": 1.0, "alpha_scan": 1.0, "prefetch_aggr": 0.0,
+    "leaf_density": 0.75, "split_ratio": 0.5, "w_read": 1.0, "w_write": 1.0,
+    "ood_tolerance": 0.2, "rebuild_threshold": 0.5, "root_lr_scale": 1.0,
+    "leaf_lines_log2": 3, "root_fanout_log2": 8, "lambda_spacetime": 0.5,
+}
+
+
+def build(keys: torch.Tensor, p: dict):
+    n = keys.shape[0]
+    nf = torch.tensor(float(n), dtype=torch.float32, device=keys.device)
+    lam = p["lambda_spacetime"]
+    time_only = lam < 0.05  # discrete snap: pure-time construction mode
+    density = torch.where(time_only, 0.5,
+                          torch.clamp(p["leaf_density"] + 0.2 * lam,
+                                      0.5, 0.98))
+
+    keys_per_leaf = (2.0 ** p["leaf_lines_log2"]) * C.KEYS_PER_LINE * density
+    fanout = torch.clamp(2.0 ** p["root_fanout_log2"] * p["root_lr_scale"],
+                         2.0, float(MAX_LEAVES))
+    n_leaves = clip(torch.ceil(nf / torch.clamp(keys_per_leaf, min=4.0)),
+                    1.0, fanout)
+    ranks = torch.arange(n, dtype=torch.float32, device=keys.device)
+    seg = torch.minimum(ranks * n_leaves / nf, n_leaves - 1).to(torch.int32)
+
+    slope, intercept, cnt = lm.fit_segments_exact(keys, seg, MAX_LEAVES)
+    err = lm.segment_errors(keys, seg, MAX_LEAVES, slope, intercept)
+
+    rs, ri, _ = lm.fit_segments_exact(keys, torch.zeros_like(seg), 1)
+    root_slope = rs[0] * n_leaves / nf
+    root_icpt = ri[0] * n_leaves / nf
+
+    slots = torch.where(cnt > 0, cnt / torch.clamp(density, min=0.05), 0.0)
+    build_cost = nf * C.FIT_PER_KEY_NS * (1.0 + lam) \
+        + torch.sum(slots) * C.SLOT_INIT_NS
+    zero = torch.zeros((), dtype=torch.float32, device=keys.device)
+    return {
+        "keys": keys, "seg_of_key": seg, "n_leaves": n_leaves,
+        "slope": slope, "intercept": intercept, "cnt": cnt, "slots": slots,
+        "err": err, "root_slope": root_slope, "root_icpt": root_icpt,
+        "kmin": keys[0], "kmax": keys[-1],
+        "ood_buffer": zero,
+        "counters": {"n_splits": zero,
+                     "n_retrains": zero,
+                     "build_cost_ns": build_cost,
+                     "n_expands": zero,
+                     "mega_leaf": zero},
+    }
+
+
+def _lines_touched(idx, q, p, kernel=None):
+    """Cache lines touched per lookup + the search distance metric.
+    `kernel` sets the predecessor probe's mode (see `alex.run_reads`)."""
+    pred_leaf = clip(idx["root_slope"] * q + idx["root_icpt"],
+                     0.0, idx["n_leaves"] - 1.0)
+    pos = predecessor_positions(idx["keys"], q, kernel=kernel)
+    leaf = idx["seg_of_key"][pos]
+    root_err = torch.abs(pred_leaf - leaf.to(torch.float32))
+    root_lines = 1.0 + torch.log2(1.0 + root_err)   # inner-node line hops
+
+    starts = torch.cumsum(idx["cnt"], 0) - idx["cnt"]
+    local = pos.to(torch.float32) - starts[leaf]
+    pred_local = clip(idx["slope"][leaf] * q + idx["intercept"][leaf],
+                      0.0, torch.clamp(idx["cnt"][leaf], min=1.0))
+    dist = torch.abs(pred_local - local)
+    leaf_lines = 1.0 + dist / C.KEYS_PER_LINE
+    # prefetch hides leaf line latency when prediction error is small
+    hit = torch.exp(-dist / (C.KEYS_PER_LINE * 2.0))
+    eff_line_ns = (p["prefetch_aggr"] * hit * C.CACHE_LINE_PREFETCHED_NS
+                   + (1.0 - p["prefetch_aggr"] * hit) * C.CACHE_LINE_NS)
+    # aggressive prefetch on misses wastes bandwidth
+    waste = p["prefetch_aggr"] * (1.0 - hit) * C.CACHE_LINE_NS * 0.5
+    ns = (p["alpha_visit"] * root_lines * C.CACHE_LINE_NS
+          + p["alpha_scan"] * leaf_lines * eff_line_ns + waste
+          + dist * C.PROBE_STEP_NS * 0.25)
+    return ns, dist, root_err, leaf
+
+
+def run_reads(idx, reads, p, kernel=None):
+    ns, dist, root_err, _ = _lines_touched(idx, reads, p, kernel=kernel)
+    per_q = C.QUERY_BASE_NS + ns / torch.clamp(p["w_read"], min=0.1) \
+        + idx["ood_buffer"] * C.BUFFER_CMP_NS * 0.25
+    total = torch.sum(per_q)
+    return total, {
+        "avg_search_dist": torch.mean(dist),
+        "p99_search_dist": percentile(dist, 99),
+        "avg_root_err": torch.mean(root_err),
+        "read_ns_avg": torch.mean(per_q),
+    }
+
+
+def run_inserts(idx, inserts, p):
+    in_domain = inserts <= idx["kmax"]
+    n_ood = torch.sum(~in_domain).to(torch.float32)
+    q_in = torch.where(in_domain, inserts, idx["kmin"])
+    # no `kernel=`: the insert probes take the default posture, as in the
+    # reference; the probe is exact in every mode
+    ns, dist, _, leaf = _lines_touched(idx, q_in, p)
+    w_in = in_domain.to(torch.float32)
+    # 0/1 weights: the float sum is an exact count in any order
+    add = torch.zeros(MAX_LEAVES, device=inserts.device).index_add_(
+        0, leaf, w_in)
+    cnt1 = idx["cnt"] + add
+    slots = torch.clamp(idx["slots"], min=1.0)
+    occ = clip(cnt1 / slots, 0.0, 0.999)
+    shift_lines = (occ / (1.0 - occ)) / C.KEYS_PER_LINE
+
+    full = (occ > 0.95) & (idx["cnt"] > 0)
+    split_ns = torch.where(
+        full, cnt1 * C.RETRAIN_PER_KEY_NS
+        * (1.0 + torch.abs(p["split_ratio"] - 0.5)), 0.0)
+    new_slots = torch.where(
+        full, cnt1 / torch.clamp(p["leaf_density"], min=0.05), slots)
+
+    buf1 = idx["ood_buffer"] + n_ood
+    limit = 64.0 * (1.0 + 63.0 * p["ood_tolerance"])
+    retrain = buf1 > limit * p["rebuild_threshold"] * 4.0
+    retrain_ns = torch.where(
+        retrain, (idx["keys"].shape[0] + buf1) * C.RETRAIN_PER_KEY_NS, 0.0)
+    buf2 = torch.where(retrain, 0.0, buf1)
+
+    per_ins = (C.QUERY_BASE_NS + ns + shift_lines[leaf] * C.CACHE_LINE_NS) \
+        / torch.clamp(p["w_write"], min=0.1)
+    total = torch.sum(per_ins * w_in) + torch.sum(split_ns) + retrain_ns \
+        + n_ood * (C.QUERY_BASE_NS + C.BUFFER_CMP_NS * buf1 * 0.25)
+
+    counters = dict(idx["counters"])
+    counters["n_splits"] = counters["n_splits"] + torch.sum(full)
+    counters["n_retrains"] = counters["n_retrains"] \
+        + retrain.to(torch.float32)
+    idx2 = dict(idx)
+    idx2["cnt"] = cnt1
+    idx2["slots"] = torch.where(idx["cnt"] > 0, new_slots, slots)
+    idx2["ood_buffer"] = buf2
+    idx2["counters"] = counters
+    n_ins = max(inserts.shape[0], 1)
+    metrics = {
+        "insert_ns_avg": total / n_ins,
+        "avg_displacement": torch.mean(shift_lines),
+        "ood_frac": n_ood / n_ins,
+        "buffer_fill": buf2,
+        "retrained": retrain.to(torch.float32),
+    }
+    return idx2, total, metrics
+
+
+def memory_bytes(idx) -> torch.Tensor:
+    lam_gap = torch.sum(idx["slots"]) - torch.sum(idx["cnt"])
+    return (torch.sum(idx["slots"]) * 16.0 + idx["n_leaves"] * 64.0
+            + idx["ood_buffer"] * 16.0 + lam_gap * 2.0)
